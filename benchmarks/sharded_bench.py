@@ -4,14 +4,15 @@ Runs Grover at --qubits over 1/2/4/8-way qubit sharding through the
 shard_map planar executor and reports, per mesh size: reshard count,
 interconnect bytes, reflection count, and wall time per iteration.
 
-On this environment multi-chip hardware is unavailable, so timings come
-from the host-emulated CPU mesh (harness-only numbers — emulated devices
-share the physical cores); the STRUCTURAL metrics (reshards, comm bytes,
-reflects) are exact and are what determine scaling on a real slice: a
-Grover iteration is 2 local passes + one scalar psum, independent of mesh
-size, so weak scaling is communication-free by construction.
+By default timings come from the host-emulated CPU mesh (harness-only
+numbers — emulated devices share the physical cores); `--platform gpu`
+runs on the GPUs JAX finds.  The STRUCTURAL metrics (reshards, comm
+bytes, reflects) are exact on either: a Grover iteration is 2 local
+passes + one scalar psum, independent of mesh size, so weak scaling is
+communication-free by construction.
 
 Usage: python benchmarks/sharded_bench.py [--qubits 20] [--iters 8]
+       [--platform cpu|gpu]
 """
 import argparse
 import json
@@ -26,7 +27,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--qubits", type=int, default=20)
     ap.add_argument("--iters", type=int, default=8)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu")
     args = ap.parse_args()
 
     if args.platform == "cpu":
@@ -35,6 +36,8 @@ def main():
     import jax
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("--platform gpu: JAX found no GPU")
 
     from qbot_tpu.tpu.circuit import grover_circuit
     from qbot_tpu.tpu.sharded import (
@@ -80,7 +83,8 @@ def main():
         "platform": args.platform,
         "results": results,
         "note": ("emulated-mesh wall times measure the harness only; "
-                 "reshard/comm metrics are exact"),
+                 "reshard/comm metrics are exact"
+                 if args.platform == "cpu" else "wall times on GPUs"),
     }))
 
 

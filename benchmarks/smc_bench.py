@@ -4,11 +4,12 @@ Runs the parameterised-rotation posterior with HMC chains sharded over the
 ``particles`` mesh axis, at 1/2/4/8 devices with chains-per-device held
 fixed, and reports samples/s plus weak-scaling efficiency.
 
-On this environment multi-chip hardware is unavailable, so the scaling runs
-on the host-emulated CPU mesh (`--platform=cpu`, default here); the same
-code runs unchanged on a real slice.
+By default the scaling runs on the host-emulated CPU mesh
+(`--platform cpu`); `--platform gpu` runs it on the GPUs JAX finds, through
+the planar log-prob path.
 
 Usage: python benchmarks/smc_bench.py [--qubits 10] [--chains-per-dev 4]
+       [--platform cpu|gpu]
 """
 import argparse
 import json
@@ -25,7 +26,7 @@ def main():
     ap.add_argument("--depth", type=int, default=3)
     ap.add_argument("--chains-per-dev", type=int, default=4)
     ap.add_argument("--samples", type=int, default=32)
-    ap.add_argument("--platform", default="cpu")
+    ap.add_argument("--platform", choices=["cpu", "gpu"], default="cpu")
     args = ap.parse_args()
 
     if args.platform == "cpu":
@@ -34,6 +35,8 @@ def main():
     import jax
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    elif jax.devices()[0].platform != "gpu":
+        raise SystemExit("--platform gpu: JAX found no GPU")
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -50,11 +53,10 @@ def main():
         log_prob = hmc.make_circuit_log_prob(plan, counts,
                                              dtype=jnp.complex64)
     else:
-        # real TPUs expose no complex dtypes: the planar log-prob path,
-        # with gradients through the Pallas kernels' custom VJP
+        # the device path: the planar log-prob
         from qbot_tpu.utils.compile_cache import enable_compile_cache
         enable_compile_cache()
-        plan = compile_circuit(circ, pair=False)
+        plan = compile_circuit(circ)
         log_prob = hmc.make_circuit_log_prob_planar(plan, counts)
 
     results = []
@@ -98,7 +100,7 @@ def main():
         out["note"] = (
             f"emulated devices share {os.cpu_count()} physical cores; "
             "weak-scaling efficiency here measures the harness, not the "
-            "hardware - chains are independent on a real slice")
+            "hardware - chains are independent on real devices")
     print(json.dumps(out))
 
 

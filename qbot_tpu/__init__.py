@@ -1,4 +1,4 @@
-"""qbot_tpu — a TPU-native runtime for the qbot probabilistic-quantum DSL.
+"""qbot_tpu — a JAX runtime for the qbot probabilistic-quantum DSL.
 
 Public embedding API (parity with the reference package surface,
 /root/reference/qbot/__init__.py:1-9): ``executeFile``, ``executeTxt``,

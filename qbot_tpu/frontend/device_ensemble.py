@@ -530,14 +530,21 @@ def _exec_quantum(engine: _Engine, particle: _DeviceParticle, lines,
             ns["__updated_state"] = True
             return
         val = evaluate_expr(lines, line_num, tokens[1], ns)
-        rho = _to_density_host(lines, line_num, val)
-        particle.n = int_log2(rho.shape[0])
-        vals, vecs = np.linalg.eigh(rho)
-        if np.isclose(vals[-1], np.trace(rho).real, atol=1e-9):
-            # pure state: a single particle, no mixture
-            particle.qreg = engine.init_pure(vecs[:, -1])
+        ket = None if isinstance(val, ProbVal) else np.asarray(val)
+        if ket is not None and ket.ndim == 1:
+            # a ket is one pure particle: no 2^n × 2^n density detour,
+            # which would not fit in host memory at device register sizes
+            particle.n = int_log2(ket.shape[0])
+            particle.qreg = engine.init_pure(ket / np.linalg.norm(ket))
         else:
-            particle.qreg = engine.init_mixed(rho)
+            rho = _to_density_host(lines, line_num, val)
+            particle.n = int_log2(rho.shape[0])
+            vals, vecs = np.linalg.eigh(rho)
+            if np.isclose(vals[-1], np.trace(rho).real, atol=1e-9):
+                # pure state: a single particle, no mixture
+                particle.qreg = engine.init_pure(vecs[:, -1])
+            else:
+                particle.qreg = engine.init_mixed(rho)
         if engine.sample:
             particle.qreg = engine.replicate(particle.qreg)
         ns["__is_q_state"] = True
@@ -826,12 +833,21 @@ def execute_lines_device_ensemble(lines: list[str],
                 f"probabilistic branching exceeded {max_particles} "
                 f"particles; raise max_particles")
 
-    # bind each branch's dense mixture so the host merge applies verbatim
+    # bind each branch's dense mixture so the host merge applies verbatim;
+    # past _DENSE_REPLAY_LIMIT qubits a 2^n × 2^n host matrix does not
+    # fit, so ``state`` stays unbound (the device ensembles remain on the
+    # returned particles)
+    from qbot_tpu.frontend.lowering import _DENSE_REPLAY_LIMIT
     from qbot_tpu.ops.core import empty_state
+    dense = all(p.qreg is None or p.n <= _DENSE_REPLAY_LIMIT
+                for p in finished)
     for p in finished:
-        p.ns["state"] = (engine.mixture(p.qreg)
-                         if p.qreg is not None else empty_state())
+        p.ns["state"] = (empty_state() if p.qreg is None
+                         else engine.mixture(p.qreg) if dense else None)
     merged = _merge_particles(finished)
+    if not dense:
+        merged["state"] = None
+        merged["__is_q_state"] = False
     # cumulative pruned-mass bound across branches: a prob-weighted mixture
     # of ensembles with TV bounds ε_i carries bound Σ prob_i·ε_i — surfaced
     # exactly like run_lowered_ensemble (lowering.py) so --compile

@@ -49,15 +49,12 @@ def make_circuit_log_prob(plan: Plan, observed_counts, targets=None,
 
 def make_circuit_log_prob_planar(plan: Plan, observed_counts, targets=None,
                                  prior_sigma: float = 10.0) -> Callable:
-    """Planar-float32 twin of :func:`make_circuit_log_prob` for real TPUs.
+    """Planar-float32 twin of :func:`make_circuit_log_prob`.
 
-    The complex executor cannot run on TPU backends (no complex dtypes);
-    this builder evaluates the same posterior through the planar executor
-    — gradients flow through the Pallas window, pair, and reflect kernels
-    via their custom VJPs (:mod:`qbot_tpu.tpu.kernels`,
-    :func:`qbot_tpu.tpu.planar._apply_reflect_planar`), so the default
-    pair-fused ``compile_circuit`` plan works directly: HMC/NUTS pays the
-    same HBM passes as the tuned forward path.
+    Evaluates the same posterior through the planar executor, the device
+    compute path.  Every step is plain JAX, so gradients come from JAX's
+    own differentiation rules and the default ``compile_circuit`` plan
+    works directly.
     """
     from qbot_tpu.tpu.planar import (
         apply_plan_planar,

@@ -3,7 +3,7 @@
 This is the L1 engine of the framework (capability parity with the
 reference's ``qbot/density.py`` + ``qbot/qgates.py`` application path — see
 /root/reference/qbot/density.py:7-240 and qgates.py:278-279) designed
-TPU-first:
+for the device:
 
 * The register is viewed as a rank-``2n`` tensor of shape ``(2,)*2n`` (density
   mode) or rank-``n`` ``(2,)*n`` (pure mode).  Qubit ``i`` is the ``i``-th
@@ -17,7 +17,7 @@ TPU-first:
   (cf. reference ``genArbitrarySwap`` conjugations, density.py:122-148).
 * Every function is written against a generic array namespace ``xp`` so the
   exact same code path runs under NumPy (the complex128 conformance oracle)
-  and ``jax.numpy`` (the complex64 TPU path, jit/shard-compatible: no
+  and ``jax.numpy`` (the complex64 device path, jit/shard-compatible: no
   data-dependent Python control flow on array values; qubit indices are
   static Python ints).
 """

@@ -5,7 +5,7 @@ Capability parity with the reference's ``qbot/qgates.py`` constructors
 axis rotations, QFT, qubit swap, arbitrary basis-state permutation, cyclic
 shift, embedding into a larger register, and (multi-)controlled gates.
 
-Design differences from the reference (TPU-first):
+Design differences from the reference:
 
 * Every constructor is vectorised (index arithmetic on ``arange`` arrays)
   instead of Python double loops.
@@ -100,9 +100,9 @@ def rot_z(theta, xp=np):
 def rot_planar(axis: str, theta, xp=np):
     """Planar (stacked real/imag) rotation matrix: shape (2, 2, 2).
 
-    The TPU backend has no complex dtypes, so parameterised gates built
-    inside jit return (re, im) stacked on the leading axis; the complex
-    executors recombine, the planar executors use it directly.
+    Parameterised gates built inside jit return (re, im) stacked on the
+    leading axis; the complex executors recombine, the planar executors
+    use it directly.
     """
     c, s = xp.cos(theta / 2), xp.sin(theta / 2)
     z = xp.zeros_like(c)

@@ -6,7 +6,7 @@ qubits in an arbitrary (possibly multi-qubit, e.g. bell) basis, producing a
 ``MeasurementResult`` with outcome probabilities, projectors, ket-symbol
 strings, and the collapsed post-measurement register.
 
-TPU-first design difference: the reference loops over all
+Design difference: the reference loops over all
 ``len(basis)^(targets/basisQubits)`` outcomes computing one trace each
 (measurement.py:147-155).  Here the full outcome distribution is produced by
 a *single batched einsum* over per-slot outcome axes, and the collapsed

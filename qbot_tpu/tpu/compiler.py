@@ -1,15 +1,14 @@
 """Window-fusion circuit compiler.
 
 Turns a :class:`~qbot_tpu.tpu.circuit.Circuit` into a static execution plan
-whose hot steps are (2^a × 2^w × 2^b) · (2^w × 2^w) batched matmuls — the
-shape the MXU wants — instead of one full-state pass per gate.
+whose hot steps are (2^a × 2^w × 2^b) · (2^w × 2^w) batched matmuls
+instead of one full-state pass per gate.
 
-Design (TPU-first; no analogue exists in the reference, which pays an
-O(8^n) full-space construction per gate, qgates.py:161-182 + 278-279):
+Design (no analogue exists in the reference, which pays an O(8^n)
+full-space construction per gate, qgates.py:161-182 + 278-279):
 
 * The n qubit axes are partitioned into contiguous *windows* of up to
-  ``window`` qubits (default 7 → 128×128 fused unitaries, exactly one MXU
-  tile).
+  ``window`` qubits (default 7 → 128×128 fused unitaries).
 * Consecutive gates whose qubits fall inside one window are folded into
   that window's pending unitary on the fly; the state is only touched when
   a window must *flush* — so a layer of n single-qubit gates costs
@@ -36,8 +35,8 @@ from qbot_tpu.ops.gates import controlled
 from qbot_tpu.tpu.circuit import Circuit, CircuitOp
 
 __all__ = ["Term", "WindowStep", "DiagStep", "FlipStep", "PhaseStep",
-           "ContractStep", "PairStep", "ReflectStep", "Plan",
-           "compile_circuit", "expand_pairs", "expand_reflections",
+           "ContractStep", "ReflectStep", "Plan",
+           "compile_circuit", "expand_reflections",
            "expand_phases", "phase_as_diag", "gate_as_diag",
            "eigen_decompose_controlled", "decompose_spanning_swap"]
 
@@ -57,13 +56,12 @@ class WindowStep:
     start: int                        # first qubit axis of the window
     width: int                        # window qubit count (dim = 2**width)
     terms: tuple[Term, ...]
-    # basis-state sign flips applied BEFORE this window's unitary, fused
-    # into the window kernel so they cost no extra HBM pass
+    # basis-state sign flips applied BEFORE this window's unitary
     pre_flips: tuple[int, ...] = ()
     # controlled-phase factors applied BEFORE this window's unitary:
-    # each (qubits, z) multiplies an amplitude by z when ALL the qubits
-    # are 1 — fused into the window kernel as an in-register masked
-    # complex multiply, so a cross-window CZ/CPhase costs no HBM pass
+    # each (qubits, z, pattern) multiplies an amplitude by z when the
+    # qubits' bits match the pattern — the dot engine applies them as one
+    # masked elementwise multiply ahead of the window's dot
     pre_phases: tuple[tuple[tuple[int, ...], complex], ...] = ()
 
 
@@ -88,29 +86,12 @@ class PhaseStep:
     The normal form of any (multi-)controlled phase gate — in particular
     every cross-window CZ/CPhase left by the CX → H·CZ·H and controlled-U
     eigendecomposition rewrites (whose eigenvalue ordering may place the
-    phase at any diag index, hence the pattern).  Never executed
-    standalone on the hot path: ``_fuse_phases`` attaches it to the next
-    window/pair kernel, where it costs a few in-register VPU ops instead
-    of a full HBM pass (a standalone DiagStep pass measured 13 ms at
-    26 qubits — as much as a fused 128×128 window matmul pass).
+    phase at any diag index, hence the pattern).  ``_fuse_phases``
+    attaches it to the next window as a pre-phase.
     """
     qubits: tuple[int, ...]
     phase: complex
     pattern: int = -1                     # -1 = all qubits 1
-
-
-@dataclass(frozen=True)
-class PairStep:
-    """Two disjoint, qubit-contiguous windows applied in ONE HBM pass.
-
-    The planar executor lowers this to a single Pallas kernel that
-    left-multiplies ``first``'s unitary and contracts ``second``'s on the
-    other axis of the same VMEM tile — halving state traffic versus two
-    window passes.  Disjoint supports commute, so semantics equal applying
-    ``first`` then ``second``.
-    """
-    first: WindowStep
-    second: WindowStep
 
 
 @dataclass(frozen=True)
@@ -150,7 +131,7 @@ class ContractStep:
 
 
 Step = Union[WindowStep, DiagStep, FlipStep, PhaseStep, ContractStep,
-             PairStep, ReflectStep]
+             ReflectStep]
 
 
 @dataclass
@@ -161,13 +142,13 @@ class Plan:
     num_params: int = 0
     gate_count: int = 0               # logical gates represented
     # executor the auto-compiler ranked fastest for this plan:
-    # "pallas" = window/pair kernels, "dot" = axis-scheduled XLA dots
-    # (tpu/dotplan.py).  Runners honour it; explicit engine args override.
-    engine: str = "pallas"
+    # "step" = one XLA pass per plan step (tpu/planar.py), "dot" = the
+    # in-place dot engine (tpu/dotplan.py).  Runners honour it.
+    engine: str = "step"
 
     @property
     def num_passes(self) -> int:
-        """Full-state HBM passes this plan costs (the perf figure of merit).
+        """Full-state passes this plan costs (the perf figure of merit).
 
         ReflectStep costs 2 (⟨v|ψ⟩ read pass + rank-1 update pass);
         FlipStep costs 0 (an in-place single-element scatter); every other
@@ -182,8 +163,8 @@ class Plan:
         return total
 
     def hbm_bytes(self, dtype_bytes: int = 4, planar: bool = True) -> int:
-        """HBM traffic per execution: read + write of the planar state per
-        pass (window matrices are VMEM-resident noise by comparison)."""
+        """Device-memory traffic per execution: read + write of the planar
+        state per pass (window matrices are noise by comparison)."""
         components = 2 if planar else 1
         state = components * (2**self.n) * dtype_bytes
         return 2 * state * self.num_passes
@@ -230,9 +211,6 @@ def plan_cache_key(plan: Plan):
                 u("ph", ph[0], complex(ph[1]),
                   ph[2] if len(ph) > 2 else -1)
             return all(term(t) for t in st.terms)
-        if isinstance(st, PairStep):
-            u("P2")
-            return step(st.first) and step(st.second)
         if isinstance(st, DiagStep):
             u("D", st.targets)
             arr(st.diag)
@@ -256,8 +234,7 @@ def plan_cache_key(plan: Plan):
             return True
         return False
 
-    u("hdr", plan.n, plan.window, getattr(plan, "engine", "pallas"),
-      plan.num_params)
+    u("hdr", plan.n, plan.window, plan.engine, plan.num_params)
     for st in plan.steps:
         if not step(st):
             return None
@@ -326,7 +303,7 @@ def eigen_decompose_controlled(op: CircuitOp) -> Optional[list[CircuitOp]]:
     one fused elementwise pass wherever it lands (and, on a sharded
     register, factors across shards with zero communication).  This removes
     the need to ever contract a controlled gate across windows or shards —
-    the TPU-native replacement for the reference's full-space
+    the replacement for the reference's full-space
     ``genMultiControlledGate`` conjugations (qgates.py:228-275).
 
     Returns None when the op is not a static controlled gate or the
@@ -367,64 +344,70 @@ def decompose_spanning_swap(op: CircuitOp) -> Optional[list[CircuitOp]]:
             CircuitOp("gate", (b,), (a,), X)]
 
 
-# single-chip cost-model parameters, CALIBRATED TO MEASUREMENT on the
-# v5e (benchmarks/diag_pairperf.py / diag_pallasbw.py, 26 qubits) — not
-# datasheet figures.  The Pallas DMA pipeline sustains ~210 GB/s for
-# window-shaped tiles (a pure-copy kernel measures the same, so it is a
-# pipeline property, not compute), and kernel DMA/MXU phases barely
-# overlap: per-step cost = hbm_pass + matmul time reproduces the
-# measured 8.3 ms strided pair pass.  MXU entries are effective
-# throughputs: f32 runs as a 6-pass bf16 decomposition, bf16_3x as 3.
-_PALLAS_BW = 210e9
-_MXU_EFF = {"f32": 22e12, "bf16_3x": 44e12, "bf16": 130e12}
+# Single-card cost-model constants, derived from one run of
+# benchmarks/calibrate_cost.py (26 qubits, planar float32, device-trace
+# times) on an NVIDIA H100 80GB HBM3 at a 400 W power limit; the raw
+# times are in PERF.md.  Effective rates, not data-sheet figures:
+# * _DOT_STREAM_BW: state bytes read + written over the time of an
+#   in-place dot-engine window pass at width 4 (bandwidth-bound);
+# * _DOT_FLOPS: window-matmul FLOPs over pass time at width 8, per dot
+#   mode — compute-bound at HIGHEST; HIGH and DEFAULT are still
+#   bandwidth-bound there, so their rates are lower bounds;
+# * _STEP_BW: the same stream rate for the step executor's window pass;
+# * _XLA_BW: an elementwise diagonal pass;
+# * _DOT_SLACK: the mean of pass time over max(stream, compute) across
+#   widths 4-8 at HIGHEST;
+# * _PHASE_REAL/_PHASE_CPLX: the extra time of a fused real/complex
+#   pre-phase over a plain width-4 pass, as a fraction of that pass.
+_DOT_STREAM_BW = 1.32e12
+_DOT_FLOPS = {"f32": 42.6e12, "bf16_3x": 160e12, "bf16": 159e12}
+_STEP_BW = 0.542e12
+_XLA_BW = 1.43e12
+_DOT_SLACK = 1.19
+_PHASE_REAL = 0.0006
+_PHASE_CPLX = 0.045
 
-# dot-engine parameters (round-4 in-place engine, calibrated to
-# benchmarks/diag_hybrid*.py at 26 qubits; see docs/perf.md): an
-# IN-PLACE window contraction — output axis reuses the contracted
-# axis's position, no relayout — streams at ~420-490 GB/s effective
-# (2.2-2.6 ms/pass); the end-to-end plan pays ~20% scheduling slack on
-# top of max(stream, MXU).  A REAL cross-window phase (CZ) costs ~0.6 ms
-# as one fused mask multiply; complex phases ~1.4 ms.
-_XLA_BW = 316e9
-_DOT_STREAM_BW = 500e9
-_DOT_SLACK = 1.2
-_DOT_MXU = {"f32": 33e12, "bf16_3x": 60e12, "bf16": 180e12}
+
+def _window_flops(n: int, width: int) -> float:
+    """Real FLOPs of one planar window product: a realified (2D × 2D)
+    matrix against the (2D × 2^n/D) state columns."""
+    return 4.0 * 2.0 * (2**n) * (2**width)
 
 
 def dot_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
     """Modeled seconds per plan execution on the in-place dot engine.
 
     Pairs count as two passes (the engine applies windows singly); each
-    window costs max(in-place stream read+write, realified matmul MXU
-    time) plus scheduling slack; fused pre-phases cost their mask
-    multiply (cheap for real phases); diagonals are one elementwise
-    pass; reflections two.
+    window costs max(in-place stream read+write, matmul time) plus
+    scheduling slack; fused pre-phases cost their mask multiply (cheap
+    for real phases); diagonals are one elementwise pass; reflections
+    two.
     """
+    from qbot_tpu.tpu.dotplan import _MIX_WIDTH_MIN
+
     state_bytes = 2 * (2**plan.n) * 4
     stream = 2 * state_bytes / _DOT_STREAM_BW
     xla_pass = 2 * state_bytes / _XLA_BW
-    mxu = _DOT_MXU.get(dot_mode, _DOT_MXU["f32"])
+    rate = _DOT_FLOPS.get(dot_mode, _DOT_FLOPS["f32"])
 
     def phase_cost(phases) -> float:
         t = 0.0
         for ph in phases:
             z = complex(ph[1])
-            t += (0.3 if abs(z.imag) < 1e-9 else 0.7) * stream
+            t += (_PHASE_REAL if abs(z.imag) < 1e-9 else _PHASE_CPLX) * stream
         return t
 
     def win_cost(w) -> float:
-        flops = 4.0 * 2.0 * (2**plan.n) * (2**w.width)
-        mxu_w = mxu
+        rate_w = rate
         if dot_mode == "f32_mix":
-            # selective precision: MXU-bound widths (>= 7) run 3-pass
-            # bf16, the rest full f32 (dotplan._MIX_WIDTH_MIN)
-            mxu_w = (_DOT_MXU["bf16_3x"] if w.width >= 7
-                     else _DOT_MXU["f32"])
-        return (max(stream, flops / mxu_w) * _DOT_SLACK
-                + phase_cost(w.pre_phases))
+            # selective precision: wide windows run at HIGH, the rest f32
+            rate_w = (_DOT_FLOPS["bf16_3x"] if w.width >= _MIX_WIDTH_MIN
+                      else _DOT_FLOPS["f32"])
+        return (max(stream, _window_flops(plan.n, w.width) / rate_w)
+                * _DOT_SLACK + phase_cost(w.pre_phases))
 
     t = 0.0
-    for s in expand_pairs(plan.steps):
+    for s in plan.steps:
         if isinstance(s, FlipStep):
             continue
         if isinstance(s, ReflectStep):
@@ -439,21 +422,17 @@ def dot_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
 
 
 def plan_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
-    """Modeled seconds per plan execution on the Pallas engine.
+    """Modeled seconds per plan execution on the step executor.
 
-    Wide windows amortise HBM passes but pay more MXU time; Pallas
-    DMA/compute phases barely overlap (measured), so each window/pair
-    step costs its DMA pass PLUS its matmul time.  Diagonals cost one
-    XLA elementwise pass; reflections two; flips nothing.
+    Each window costs max(stream read+write,
+    matmul time); its fused pre-phases cost one elementwise pass each
+    (the step executor applies them as diagonal passes); diagonals cost
+    one elementwise pass; reflections two; flips nothing.
     """
     state_bytes = 2 * (2**plan.n) * 4
-    hbm_pass = 2 * state_bytes / _PALLAS_BW
+    stream = 2 * state_bytes / _STEP_BW
     xla_pass = 2 * state_bytes / _XLA_BW
-    mxu = _MXU_EFF.get(dot_mode, _MXU_EFF["f32"])
-
-    def win_flops(w: WindowStep) -> float:
-        # 4 real matmuls, 2 FLOPs/MAC, D MACs per amplitude component
-        return 4.0 * 2.0 * (2**plan.n) * (2**w.width)
+    rate = _DOT_FLOPS.get(dot_mode, _DOT_FLOPS["f32"])
 
     t = 0.0
     for s in plan.steps:
@@ -461,92 +440,75 @@ def plan_cost_model(plan: Plan, dot_mode: str = "f32") -> float:
             continue
         if isinstance(s, ReflectStep):
             t += 2 * xla_pass
-        elif isinstance(s, PairStep):
-            t += (hbm_pass
-                  + (win_flops(s.first) + win_flops(s.second)) / mxu)
         elif isinstance(s, WindowStep):
-            t += hbm_pass + win_flops(s) / mxu
+            t += (max(stream, _window_flops(plan.n, s.width) / rate)
+                  + len(s.pre_phases) * xla_pass)
         else:
             t += xla_pass
     return t
 
 
-def auto_candidates(circ: Circuit, pair: bool = True,
-                    mode: Optional[str] = None):
-    """(cost, plan, engine) for every width/engine the auto search ranks.
+def auto_candidates(circ: Circuit, mode: Optional[str] = None):
+    """(cost, plan, engine) for every width the auto search ranks.
 
     Exposed so tests can mirror the search exactly (the auto branch of
-    :func:`compile_circuit` picks the argmin of THIS list).  Dot-engine
-    candidates compile with ``partition="dot"`` over widths 4..8; Pallas
-    candidates (only when the kernels are available) with the pallas
-    partition over widths 4..7 (the kernels cap at 128×128 tiles).
+    :func:`compile_circuit` picks the argmin of THIS list): dot-engine
+    plans with ``partition="dot"`` over widths 4..8.
     """
-    from qbot_tpu.tpu.kernels import _use_pallas, dot_mode
+    from qbot_tpu.tpu.dotplan import dot_mode
 
     if mode is None:
         mode = dot_mode()
     out = []
     for w_try in range(4, 9):
-        cand = compile_circuit(circ, w_try, pair, partition="dot")
+        cand = compile_circuit(circ, w_try, partition="dot")
         out.append((dot_cost_model(cand, mode), cand, "dot"))
-        if _use_pallas() and w_try <= 7:
-            cp = compile_circuit(circ, w_try, pair)
-            out.append((plan_cost_model(cp, mode), cp, "pallas"))
     return out
 
 
-def compile_circuit(circ: Circuit, window=7, pair: bool = True,
-                    partition: str = "pallas") -> Plan:
+def compile_circuit(circ: Circuit, window=7, partition: str = "step"
+                    ) -> Plan:
     """Compile to a window-fused plan.
 
     ``window="auto"`` ranks the candidates of :func:`auto_candidates`
-    (both engines, measurement-calibrated cost models, current kernel
-    dot mode) and keeps the fastest.  ``partition="dot"`` aligns window
-    boundaries to the in-place dot engine's tiling-legal positions
-    (window ends at <= n-10, n-7, or n).
+    (measurement-calibrated cost model, current dot mode) and keeps the
+    fastest.  ``partition="dot"`` aligns window boundaries to the
+    in-place dot engine's legal positions (window ends at <= n-10, n-7,
+    or n).
     """
     if window == "auto":
-        best = min(auto_candidates(circ, pair), key=lambda t: t[0])
-        _, plan, eng = best
-        if eng == "dot":
-            from qbot_tpu.tpu.dotplan import lower_dot_plan
+        best = min(auto_candidates(circ), key=lambda t: t[0])
+        _, plan, _ = best
+        from qbot_tpu.tpu.dotplan import lower_dot_plan
 
-            if lower_dot_plan(plan) is not None:
-                plan.engine = "dot"
-            else:
-                # the dot ranking won but the plan does not lower: the
-                # dot-partition bounds were ranked for an engine that
-                # will not run, so re-rank on the pallas partition —
-                # with Pallas that is the real executor, and without it
-                # the XLA fallback still costs per-pass, so fewer/wider
-                # pallas-partition windows win
-                return compile_circuit(circ, "auto_pallas", pair)
-        return plan
-    if window == "auto_pallas":       # internal: pallas-only re-rank
-        from qbot_tpu.tpu.kernels import dot_mode
+        if lower_dot_plan(plan) is not None:
+            plan.engine = "dot"
+            return plan
+        # the dot ranking won but the plan does not lower: re-rank on the
+        # step partition, whose executor runs any plan
+        return compile_circuit(circ, "auto_step")
+    if window == "auto_step":         # internal: step-executor re-rank
+        from qbot_tpu.tpu.dotplan import dot_mode
 
         mode = dot_mode()
         best = None
         for w_try in range(4, 8):
-            cand = compile_circuit(circ, w_try, pair)
+            cand = compile_circuit(circ, w_try)
             cost = plan_cost_model(cand, mode)
             if best is None or cost < best[0]:
                 best = (cost, cand)
         return best[1]
     n = circ.n
     w = min(window, n) if n else 1
-    # Hybrid contiguous window partition, chosen for the Pallas kernel
-    # geometries: the LAST group always has width min(n, LANE_WIDTH_LOG2)
-    # so the right-multiply kernel gets full 128 lanes, and the remaining
-    # front qubits split END-ALIGNED into groups of width ``w`` (remainder
-    # group first).  Every middle group then keeps its trailing batch dim
-    # B = 2^(sum of later widths) >= 2^7 — lane-aligned for the
-    # left-multiply kernel; no geometry falls into the slow XLA fallback.
-    # ``w`` < 7 trades more HBM passes for fewer MXU FLOPs (fused window
-    # matrices are 2^w square), which wins when layers are gate-sparse.
+    # Step partition: the LAST group always has width min(n, 7) and the
+    # remaining front qubits split END-ALIGNED into groups of width ``w``
+    # (remainder group first), so every middle group keeps a trailing
+    # batch dim B = 2^(sum of later widths) >= 2^7.  ``w`` < 7 trades
+    # more passes for fewer matmul FLOPs (fused window matrices are 2^w
+    # square), which wins when layers are gate-sparse.
     #
     # ``partition="dot"`` (n >= 14): every window end must be a
-    # tiling-legal in-place position for the dot engine (<= n-10, n-7,
+    # legal in-place position for the dot engine (<= n-10, n-7,
     # or n; dotplan.window_spec) — a 6-qubit "sub" window at [n-13, n-7)
     # and the 7-qubit lane window at [n-7, n), with the front split into
     # ``w``-chunks remainder-LAST.  At 26 qubits this puts the brickwork
@@ -640,8 +602,7 @@ def compile_circuit(circ: Circuit, window=7, pair: bool = True,
                 if (nontriv.shape[0] == 1
                         and abs(abs(d[nontriv[0]]) - 1.0) < 1e-12):
                     # controlled-phase normal form (one unimodular entry
-                    # off 1): fuses into the next window kernel for free
-                    # instead of an HBM pass
+                    # off 1): fuses into the next window as a pre-phase
                     idx = int(nontriv[0])
                     plan.steps.append(
                         PhaseStep(targets, complex(d[idx]), idx))
@@ -690,8 +651,6 @@ def compile_circuit(circ: Circuit, window=7, pair: bool = True,
     plan.steps = _detect_reflections(plan.steps, n)
     plan.steps = _fuse_phases(plan.steps)
     plan.steps = _fuse_flips(plan.steps)
-    if pair:
-        plan.steps = _pair_windows(plan.steps, n)
     return plan
 
 
@@ -753,7 +712,7 @@ def _detect_reflections(steps: list[Step], n: int) -> list[Step]:
     """Replace ``windows_A · flip(idx) · windows_B`` with a ReflectStep when
     B is the blockwise inverse of A (same window partition, B_w ≈ A_w†).
 
-    Runs before flip fusion and pairing, so flips are still standalone and
+    Runs before flip fusion, so flips are still standalone and
     window runs are contiguous.  Windows on disjoint qubits commute, so
     matching is by (start, width) regardless of order within each run.
     """
@@ -827,54 +786,6 @@ def expand_reflections(steps):
             yield step
 
 
-def _pairable(a: Step, b: Step, n: int) -> bool:
-    """True when adjacent steps fuse into one Pallas pair-kernel pass.
-
-    Requirements: both are windows, qubit-contiguous (``a`` immediately
-    before ``b``, so the state views as (A, D1, D2, B) with no middle
-    axis), ``b`` carries no pre-flips (a basis-state flip between the two
-    unitaries would not commute with ``a``), and the geometry matches one
-    of the two kernels: trailing pair (B == 1, any D1/D2 up to 128×128) or
-    middle pair (B >= 128 with D1 <= 32 so the in-kernel row loop stays
-    short).
-    """
-    if not (isinstance(a, WindowStep) and isinstance(b, WindowStep)):
-        return False
-    if a.start + a.width != b.start or b.pre_flips or b.pre_phases:
-        return False
-    if a.width + b.width > 14:          # fused tile beyond 128×128
-        return False
-    B = 2 ** (n - b.start - b.width)
-    if B == 1:
-        return True
-    return B >= 128 and a.width <= 5
-
-
-def _pair_windows(steps: list[Step], n: int) -> list[Step]:
-    """Greedy left-to-right fusion of adjacent window steps into PairSteps."""
-    out: list[Step] = []
-    i = 0
-    while i < len(steps):
-        if i + 1 < len(steps) and _pairable(steps[i], steps[i + 1], n):
-            out.append(PairStep(steps[i], steps[i + 1]))
-            i += 2
-        else:
-            out.append(steps[i])
-            i += 1
-    return out
-
-
-def expand_pairs(steps):
-    """Iterate steps with PairSteps expanded to their two windows (for
-    executors that gain nothing from pair fusion: complex/density/XLA)."""
-    for step in steps:
-        if isinstance(step, PairStep):
-            yield step.first
-            yield step.second
-        else:
-            yield step
-
-
 def _fuse_phases(steps: list[Step]) -> list[Step]:
     """Attach each PhaseStep to the next WindowStep as a fused pre-phase.
 
@@ -907,7 +818,7 @@ def _fuse_phases(steps: list[Step]) -> list[Step]:
 
 
 def phase_as_diag(step: PhaseStep) -> DiagStep:
-    """Equivalent DiagStep (for executors without in-kernel phase fusion)."""
+    """Equivalent DiagStep (for executors that apply phases as diagonals)."""
     k = len(step.qubits)
     d = np.ones(2**k, np.complex128)
     d[step.pattern if step.pattern >= 0 else 2**k - 1] = step.phase
@@ -926,13 +837,6 @@ def expand_phases(steps):
                 yield phase_as_diag(PhaseStep(qubits, z, pat))
             yield WindowStep(step.start, step.width, step.terms,
                              step.pre_flips)
-        elif isinstance(step, PairStep) and step.first.pre_phases:
-            for qubits, z, pat in step.first.pre_phases:
-                yield phase_as_diag(PhaseStep(qubits, z, pat))
-            yield PairStep(WindowStep(step.first.start, step.first.width,
-                                      step.first.terms,
-                                      step.first.pre_flips),
-                           step.second)
         else:
             yield step
 

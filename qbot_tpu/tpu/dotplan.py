@@ -1,34 +1,24 @@
 """In-place XLA dot executor for planar statevectors.
 
-The round-4 redesign of the dot engine, driven entirely by on-chip
-measurement (benchmarks/diag_hybrid*.py, docs/perf.md):
-
 * A window contraction whose output stays IN PLACE — the contracted
   axis's position is reused for the output axis, every other axis
-  untouched — streams at ~2.2-2.6 ms per full-state pass at 26 qubits
-  (~420-490 GB/s effective), as fast as a dot-native-order output and
-  ~1.6× faster than the round-3 move-to-front scheme, whose leading-dim
-  permutation cost ~4.3 ms/pass.  With every pass in place there is NO
-  axis permutation to track: flips, phases, diagonals, reflections and
-  the scan carry all see the canonical layout, and lowering never fails
-  on a torn window or un-restorable permutation.
-* The one hard hazard is minor-dim tiling: every intermediate VIEW must
-  keep its last two dims >= (8, 128) (a narrower minor pads up to 64×
-  and OOMs at 26 qubits — measured, docs/perf.md).  In-place windows
-  satisfy this whenever the trailing gap between the window end b and
-  the lane block is 0 or >= 3 qubits: b <= n-10, b == n-7, or b == n.
-  ``compile_circuit(partition="dot")`` emits aligned windows; the
-  pallas partition (…, n-7, n) is also legal, so the engine runs either.
+  untouched — needs no axis permutation: flips, phases, diagonals,
+  reflections and the scan carry all see the canonical layout, and
+  lowering never fails on a torn window or un-restorable permutation.
+* Every intermediate VIEW keeps the same trailing (2^sub, 2^lane)
+  dims (the "pinned tail"; lane = 7 qubits), with sub >= 3 qubits.  In-place
+  windows satisfy this whenever the trailing gap between the window
+  end b and the lane block is 0 or >= 3 qubits: b <= n-10, b == n-7, or
+  b == n.  ``compile_circuit(partition="dot")`` emits aligned windows;
+  the step partition (…, n-7, n) is also legal, so the engine runs
+  either.
 * Cross-window controlled phases cost a masked elementwise pass built
   from host-precomputed per-axis 0/1 vectors.  A real phase (CZ: −1) is
-  a single fused multiply (~0.6 ms measured); complex phases pay the
-  full complex rotation (~1.4 ms).  Folding phases into the window dot
-  as batch dims was measured SLOWER (diag_hybrid3 ``bat``) — batching
-  fragments the MXU work — so masks stay.
+  a single fused multiply; complex phases pay the full complex rotation.
 
 Reference analogue: none (the reference pays O(8^n) per gate,
-qgates.py:278-279); this is the TPU-native general-circuit engine of
-SURVEY.md §7 decision 1.
+qgates.py:278-279); this is the general-circuit engine of SURVEY.md §7
+decision 1.
 """
 from __future__ import annotations
 
@@ -48,40 +38,54 @@ from qbot_tpu.tpu.compiler import (
     Plan,
     ReflectStep,
     WindowStep,
-    expand_pairs,
     phase_as_diag,
 )
 
 __all__ = ["lower_dot_plan", "apply_plan_dot", "DotPlan", "dot_precision",
-           "make_scanned_dot_runner"]
+           "set_dot_mode", "dot_mode", "make_scanned_dot_runner"]
 
 _LANE_LOG2 = 7                # phase/flip carrier minor axis (lanes)
 _SUB_LOG2 = 3                 # phase/flip carrier second-minor axis
 
 
+# Window matmul precision mode: "f32" | "f32_mix" | "bf16_3x" | "bf16".
+# "f32_mix" is a dot-engine policy: reduced precision ONLY on windows of
+# width >= _MIX_WIDTH_MIN, full f32 everywhere else.
+_DOT_MODE = "f32"
+
+
+def set_dot_mode(mode: str) -> None:
+    global _DOT_MODE
+    if mode not in ("f32", "f32_mix", "bf16_3x", "bf16"):
+        raise ValueError(f"unknown dot mode {mode!r}")
+    _DOT_MODE = mode
+
+
+def dot_mode() -> str:
+    return _DOT_MODE
+
+
 def dot_precision():
-    """Map the kernel dot mode to an XLA dot precision.
+    """Map the dot mode to an XLA dot precision.
 
-    f32 -> HIGHEST (6-pass bf16 = full f32), bf16_3x -> HIGH (3-pass
-    bf16, the hardware's native version of the manual Dekker split in
-    kernels._dot), bf16 -> DEFAULT (single pass).  f32_mix resolves
-    per window at lower time (:func:`lower_dot_plan`); the global
-    fallback used by non-window paths is full f32.
+    f32 -> HIGHEST, bf16_3x -> HIGH, bf16 -> DEFAULT.  For float32
+    operands on a GPU, XLA runs HIGH and DEFAULT through reduced-
+    precision (TF32-class) tensor-core algorithms; the mode names are
+    kept for the CLI, not as a statement of the algorithm.  f32_mix
+    resolves per window at lower time (:func:`lower_dot_plan`); the
+    global fallback used by non-window paths is full f32.
     """
-    from qbot_tpu.tpu.kernels import dot_mode
-
     return {"f32": jax.lax.Precision.HIGHEST,
             "f32_mix": jax.lax.Precision.HIGHEST,
             "bf16_3x": jax.lax.Precision.HIGH,
-            "bf16": jax.lax.Precision.DEFAULT}[dot_mode()]
+            "bf16": jax.lax.Precision.DEFAULT}[_DOT_MODE]
 
 
-# f32_mix window-width threshold: at 26 qubits a width-7 window's 6-pass
-# f32 matmul takes ~3.2 ms against the ~2.2 ms in-place stream floor
-# (MXU-bound; docs/perf.md), while width <= 6 halves the MXU work and is
-# bandwidth-bound even at HIGHEST — so only width >= 7 benefits from the
-# 3-pass drop, and narrower windows keep full f32 for free.
-_MIX_WIDTH_MIN = 7
+# f32_mix window-width threshold: the narrowest width at which a HIGHEST
+# window pass took over 1.1x the HIGH pass (benchmarks/calibrate_cost.py
+# on an NVIDIA H100 80GB HBM3 at 400 W: width 5, 0.988 ms vs 0.774 ms;
+# width 4 is bandwidth-bound at either precision).
+_MIX_WIDTH_MIN = 5
 
 
 def _tail_split(n: int) -> tuple[int, int, int]:
@@ -113,11 +117,11 @@ class _Diag:
 class _DiagCarrier:
     """Diagonal step in the pinned-carrier broadcast formulation: the
     per-target small diag broadcasts over the (2,)*n axes and reshapes
-    to the (F, S, L) carrier at the materialisation point — tiling-safe
-    for ANY target set (the grouped view of, e.g., a CZ diag on qubits
-    (5, 6) at n=26 has a width-4 second-minor dim and would pad 2×;
-    scattered targets can be outright fatal).  Same formulation as
-    sharded_ensemble._batched_sharded_diag's large-n path."""
+    to the (F, S, L) carrier at the materialisation point — it keeps the
+    pinned tail for ANY target set (the grouped view of, e.g., a CZ diag
+    on qubits (5, 6) at n=26 has a width-4 second-minor dim).  Same
+    formulation as sharded_ensemble._batched_sharded_diag's large-n
+    path."""
     targets: tuple[int, ...]
     dr: np.ndarray                    # (2,)*t real part
     di: np.ndarray
@@ -154,10 +158,8 @@ def plan_tail_split(plan: Plan):
     """(front, sub, lane) qubit counts for the plan's pinned tail.
 
     Every view in a lowered plan keeps the SAME literal trailing
-    (2^sub, 2^lane) dims — measured (diag_engine4): views that merely
-    stay tile-compatible but change their trailing SIZES between passes
-    cost ~1 ms/pass in relayouts; literally identical trailing dims are
-    bitcasts.  The sub width is read off the window that ends at
+    (2^sub, 2^lane) dims, so reshapes between passes are bitcasts, not
+    relayouts.  The sub width is read off the window that ends at
     ``n - lane`` (the partition's sub window); a plan with no tail
     windows uses sub = 3.  Returns None when the plan's windows cannot
     share one tail split.
@@ -167,7 +169,7 @@ def plan_tail_split(plan: Plan):
         return _tail_split(n)         # split only carries the phase masks
     lane = _LANE_LOG2
     subs = set()
-    for s in expand_pairs(plan.steps):
+    for s in plan.steps:
         if isinstance(s, WindowStep):
             b = s.start + s.width
             if b == n - lane:
@@ -186,13 +188,13 @@ def window_spec(n: int, p: int, w: int, tail):
 
     Front windows carry the (2^sub, 2^lane) tail as passthrough axes;
     the sub window contracts the sub axis in place; the lane window the
-    lane axis.  Size-1 leading axes are dropped from the spec (a
-    degenerate batch dim measured ~0.16 ms/pass of overhead).  Returns
+    lane axis.  Size-1 leading axes are dropped from the spec (no
+    degenerate batch dims reach the dot).  Returns
     None when the window straddles a tail boundary.
     """
     b = p + w
     A, D = 2 ** p, 2 ** w
-    if n <= 13:                       # small states: padding is noise
+    if n <= 13:                       # small states: plain flat views
         return ((2, A, D, 2 ** (n - b)), "xicj,cajb->xaib")
     front, sub, lane = tail
     S, L = 2 ** sub, 2 ** lane
@@ -254,7 +256,7 @@ def _phase_vectors(phase, n: int, tail):
 
 
 def _grouped_view_ok(view, n: int) -> bool:
-    """Reject views whose last two dims would pad badly on TPU tiles."""
+    """Accept only views that keep the pinned (>= 8, >= 128) minor dims."""
     if n <= 13:
         return True
     return view[-1] >= 128 and (len(view) < 3 or view[-2] >= 8)
@@ -262,24 +264,22 @@ def _grouped_view_ok(view, n: int) -> bool:
 
 def lower_dot_plan(plan: Plan, cycle: bool = True) -> Optional[DotPlan]:
     """Lower a window plan to in-place dot-engine steps, or None when a
-    step cannot keep a tiling-safe view (caller falls back to the planar
+    step cannot keep a pinned-tail view (caller falls back to the planar
     executor).  Every pass preserves the canonical axis layout, so the
     lowered body composes under ``lax.scan`` with no restore step
     (``cycle`` is accepted for API compatibility; the property now holds
     unconditionally).
     """
-    from qbot_tpu.tpu.kernels import dot_mode
-
     n = plan.n
     if n < 1:
         return None
     tail = plan_tail_split(plan)
     if tail is None:
         return None
-    mix = dot_mode() == "f32_mix"
+    mix = _DOT_MODE == "f32_mix"
     lowered: list = []
     saw_window = False
-    for s in expand_pairs(plan.steps):
+    for s in plan.steps:
         if isinstance(s, WindowStep):
             sv = window_spec(n, s.start, s.width, tail)
             if sv is None:
@@ -311,10 +311,8 @@ def lower_dot_plan(plan: Plan, cycle: bool = True) -> Optional[DotPlan]:
             lowered.append(_Reflect(s))
         elif isinstance(s, ContractStep):
             if n > 13:
-                # _apply_contract_planar views the state as (2,)*n — the
-                # minor-dim padding hazard (a width-2 trailing axis pads
-                # 64x under the (8,128) tiling and OOMs at 26q).  A
-                # qubit-contiguous contraction lowers as an in-place
+                # _apply_contract_planar views the state as (2,)*n,
+                # which breaks the pinned tail.  A qubit-contiguous contraction lowers as an in-place
                 # window instead; truly scattered targets bail to the
                 # planar executor.
                 t = sorted(s.targets)
@@ -356,8 +354,8 @@ def _apply_phases_masked(psi, n, phases, tail):
     same literal trailing dims as every window pass, so no relayout —
     and each factor's mask is an outer product of three host-precomputed
     0/1 vectors.  A REAL phase (CZ and friends) reduces to one fused
-    multiply of the whole state (~0.6 ms at 26q); complex phases pay the
-    full planar rotation.
+    multiply of the whole state; complex phases pay the full planar
+    rotation.
     """
     front, sub, lane = tail
     F, S, L = 2 ** front, 2 ** sub, 2 ** lane
@@ -379,9 +377,8 @@ def _apply_phases_masked(psi, n, phases, tail):
 def carrier_shape(lowered: DotPlan) -> tuple[int, ...]:
     """The pinned (2, F, S, L) shape a lowered plan computes in.
 
-    The flat (2, 2^n) planar shape tiles its size-2 second-minor dim to
-    8 (4× padding); carrying the pinned 4-D shape through ``lax.scan``
-    instead measured ~0.5 ms/pass faster (diag_engine lineage).
+    Carrying the pinned 4-D shape through ``lax.scan`` keeps every
+    window view a bitcast of the carry.
     """
     n = lowered.n
     if n <= 13:
@@ -402,8 +399,8 @@ def apply_plan_dot(psi: jnp.ndarray, lowered: DotPlan, params=None,
     """Run a lowered dot plan over a planar (2, 2^n) state (traceable).
 
     ``carrier=True``: ``psi`` is (and stays) in :func:`carrier_shape`
-    form — used by the scanned runner so the loop carry never takes the
-    padded flat layout.
+    form — used by the scanned runner so the loop carry keeps the
+    pinned carrier layout.
 
     ``prescale``: optional traced scalar folded into the FIRST window's
     matrix (or multiplied into the state when no window leads) — the
@@ -487,8 +484,7 @@ def density_plan_2n(plan: Plan) -> Plan:
     flips become row/column PhaseSteps (pattern-matched −1 factors),
     which fuse into the following window as mask multiplies.  The
     resulting plan lowers through the ordinary in-place dot engine, so
-    mixed states inherit the statevector engine's speed — the round-3
-    "density executor could run on the dot engine" lead, wired.
+    mixed states run on the statevector engine.
     """
     from qbot_tpu.tpu.compiler import (
         Plan as CPlan,
@@ -517,7 +513,7 @@ def density_plan_2n(plan: Plan) -> Plan:
                     None if t.maker is None else _conj_maker(t.maker),
                     t.num_controls)
 
-    for step in expand_pairs(expand_phases(expand_reflections(plan.steps))):
+    for step in expand_phases(expand_reflections(plan.steps)):
         if isinstance(step, WindowStep):
             for m in step.pre_flips:
                 big.steps.extend(flip_phases(m))
@@ -555,8 +551,8 @@ def make_scanned_dot_runner(plan: Plan, repeats: int, init_plan=None,
     canonical layout with no restore step.
 
     ``renorm_every=k`` re-normalises the state every k bodies — the
-    error-contract mitigation for the reduced-precision dot modes
-    (docs/perf.md): the norm reduction fuses into the body's last pass
+    error-contract mitigation for the reduced-precision dot modes: the
+    norm reduction fuses into the body's last pass
     as an epilogue and the 1/√norm correction folds into the NEXT body's
     first window matrix (:func:`apply_plan_dot` ``prescale``), so the
     cadence costs no extra full-state pass.  The correction is applied
@@ -580,8 +576,7 @@ def make_scanned_dot_runner(plan: Plan, repeats: int, init_plan=None,
                 from qbot_tpu.tpu.planar import apply_plan_planar
                 psi = apply_plan_planar(psi, init_plan, params)
 
-        # carry the pinned 4-D carrier shape (the flat planar shape
-        # pads its size-2 second-minor dim 4x in the tiled layout)
+        # carry the pinned 4-D carrier shape
         psi = psi.reshape(carrier_shape(lowered))
 
         if renorm_every:

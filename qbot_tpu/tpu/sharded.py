@@ -1,13 +1,13 @@
-"""Sharded planar executor: statevectors bigger than one chip's HBM.
+"""Sharded planar executor: statevectors bigger than one card's memory.
 
 The reference is hard-walled at whatever dense matrix fits in one host's RAM
-(SURVEY.md §5 "long-context" slot); this module is the TPU-native scaling
+(SURVEY.md §5 "long-context" slot); this module is the multi-device scaling
 answer for *pure* states: the ``(2, 2^n)`` planar amplitude tensor is
 sharded over the leading ``k = log2(K)`` qubit axes of a K-device mesh axis,
 and the program runs under ``shard_map`` with explicit collectives:
 
-* window/pair steps on **local** qubit axes run the normal Pallas kernels
-  per shard — embarrassingly parallel, zero communication;
+* window/pair steps on **local** qubit axes run the single-device planar
+  executor per shard — embarrassingly parallel, zero communication;
 * steps touching **sharded** qubit axes are preceded by a *qubit reshard*:
   one ``lax.all_to_all`` that exchanges the k device-axis bits with a
   contiguous block of k local qubit axes (the Ulysses-style axis exchange
@@ -19,8 +19,7 @@ and the program runs under ``shard_map`` with explicit collectives:
 
 Unlike :func:`qbot_tpu.tpu.sharding.make_sharded_runner` (GSPMD over the
 complex executor — fine on CPU meshes), this path uses only planar float32
-and explicit collectives, so it runs on real TPU chips, which expose no
-complex dtypes.
+and explicit collectives.
 """
 from __future__ import annotations
 
@@ -31,27 +30,11 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map as _shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from qbot_tpu.tpu.circuit import Circuit, CircuitOp
 from qbot_tpu.tpu.compiler import Plan, compile_circuit
-
-try:                                     # jax >= 0.8 public API
-    from jax import shard_map as _raw_shard_map
-except ImportError:                      # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map as _raw_shard_map
-
-
-def _shard_map(f, *, mesh, in_specs, out_specs):
-    """shard_map with the varying-manual-axes check relaxed: pallas_call
-    (and other primitives without vma rules) trace inside the mapped body
-    on real TPU backends only when check_vma is off."""
-    try:
-        return _raw_shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs, check_vma=False)
-    except TypeError:                    # pragma: no cover - older jax
-        return _raw_shard_map(f, mesh=mesh, in_specs=in_specs,
-                              out_specs=out_specs)
 
 __all__ = ["ShardedPlan", "compile_sharded", "splan_cache_key",
            "make_sharded_planar_runner",
@@ -273,9 +256,8 @@ def splan_cache_key(splan: "ShardedPlan"):
 
     Two structurally-identical plans — e.g. the same program segment
     recompiled on a later run — digest equal, so the ensemble executor
-    can reuse its jitted shard_map callable instead of re-tracing (the
-    per-segment re-trace is the dominant residual overhead the
-    SCALING_r04 anchor measured).  Every behaviourally-relevant field is
+    can reuse its jitted shard_map callable instead of re-tracing every
+    segment.  Every behaviourally-relevant field is
     hashed: step geometry, static matrices/diagonals byte-wise, fused
     flips/phases, item parameters, and the plan header.
     """
@@ -692,9 +674,8 @@ def make_sharded_planar_runner(splan: ShardedPlan, mesh: Mesh,
         dr = dr.reshape(shape)
         di = di.reshape(shape)
         if n_local >= 14:
-            # tiling-safe: broadcast the diag factors to the (F, S, L)
-            # carrier so every fusion output keeps >= (8, 128) trailing
-            # dims (a (2,)*n-shaped output pads 64x — see ensemble_exec)
+            # broadcast the diag factors to the (F, S, L) carrier so no
+            # array takes the rank-n (2,)*n shape (see ensemble_exec)
             from qbot_tpu.inference.ensemble_exec import _carrier
 
             F, S, L = _carrier(n_local)
@@ -762,18 +743,7 @@ def make_sharded_planar_runner(splan: ShardedPlan, mesh: Mesh,
         # psi: local planar (2, 2^(n-k))
         for item in splan.items:
             if isinstance(item, LocalSegment):
-                # no Pallas inside shard_map: Mosaic kernels do not
-                # lower under manual sharding on the TPU backend, and
-                # the in-place dot/XLA paths are faster anyway (round-4
-                # measurements); mode is restored after tracing
-                from qbot_tpu.tpu import kernels as _k
-
-                _prev = _k.kernel_mode()
-                _k.set_kernel_mode("off")
-                try:
-                    psi = apply_plan_planar(psi, item.plan, params)
-                finally:
-                    _k.set_kernel_mode(_prev)
+                psi = apply_plan_planar(psi, item.plan, params)
             elif isinstance(item, ShardedReflect):
                 psi = apply_sharded_reflect(psi, item)
             elif isinstance(item, ShardedFlip):

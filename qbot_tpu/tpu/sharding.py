@@ -1,7 +1,7 @@
 """Device-mesh sharding for amplitude tensors and particle ensembles.
 
 The reference is single-process with no parallelism of any kind
-(SURVEY.md §2.4); this module supplies the TPU-native scaling plan:
+(SURVEY.md §2.4); this module supplies the multi-device scaling plan:
 
 * mesh axes ``("particles", "qubits")`` — the SMC/HMC particle-batch axis is
   pure data parallelism; the amplitude axis shards the 2^n statevector over

@@ -1,6 +1,6 @@
 """Jitted statevector / density-matrix executors for compiled plans.
 
-The TPU compute path (replaces the reference hot loop of
+The complex-dtype compute path (replaces the reference hot loop of
 ``genGateForFullHilbertSpace`` + ``applyGate``, qgates.py:161-182,278-279):
 
 * state = rank-n ``(2,)*n`` complex64 tensor (density = rank-2n), static
@@ -37,7 +37,6 @@ from qbot_tpu.tpu.compiler import (
     Term,
     WindowStep,
     compile_circuit,
-    expand_pairs,
     expand_phases,
     expand_reflections,
 )
@@ -62,7 +61,7 @@ def _controlled_jnp(mat, num_controls: int):
 
 
 def _combine_planar(stacked, dtype):
-    """Makers return planar (2, d, d) stacks (TPU has no complex dtypes)."""
+    """Makers return planar (2, d, d) stacks; recombine to complex."""
     return (stacked[0] + 1j * stacked[1]).astype(dtype)
 
 
@@ -174,7 +173,7 @@ def _apply_reflect(psi: jnp.ndarray, step: ReflectStep):
 def apply_plan(psi: jnp.ndarray, plan: Plan, params=None) -> jnp.ndarray:
     """Run a compiled plan over a statevector (traceable)."""
     n = plan.n
-    for step in expand_pairs(expand_phases(plan.steps)):
+    for step in expand_phases(plan.steps):
         if isinstance(step, WindowStep):
             psi = _apply_window(psi, n, step, params)
         elif isinstance(step, ReflectStep):
@@ -193,7 +192,7 @@ def apply_plan_density(rho: jnp.ndarray, plan: Plan, params=None) -> jnp.ndarray
     """Run a compiled plan over a density matrix: ρ → U ρ U† step by step."""
     n = plan.n
     flat = rho.reshape(-1)          # rank-2n tensor flattened
-    for step in expand_pairs(expand_phases(expand_reflections(plan.steps))):
+    for step in expand_phases(expand_reflections(plan.steps)):
         if isinstance(step, WindowStep):
             if step.pre_flips:
                 d = 2**n

@@ -179,10 +179,11 @@ class OrbaxCheckpointManager:
 
 
 def make_checkpoint_manager(root: str, max_to_keep: int = 3):
-    """Orbax manager when available, portable npz manager otherwise."""
+    """Orbax manager when orbax is installed, portable npz manager
+    otherwise."""
     try:
         return OrbaxCheckpointManager(root, max_to_keep)
-    except Exception:
+    except ImportError:
         return CheckpointManager(root, max_to_keep)
 
 

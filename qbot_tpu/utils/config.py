@@ -9,24 +9,46 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 
+def device_memory_budget(device=None) -> float:
+    """Half the memory the device lets JAX allocate (``bytes_limit``),
+    leaving the other half for the fan-out working set.
+
+    Raises ValueError when the device reports no limit: the budget is
+    never assumed for a device the code does not know.
+    """
+    if device is None:
+        import jax
+
+        device = jax.devices()[0]
+    stats = device.memory_stats() or {}
+    limit = stats.get("bytes_limit")
+    if not limit:
+        raise ValueError(
+            f"device {device.device_kind!r} reports no memory limit; "
+            f"pass --mesh PxQ explicitly")
+    return limit / 2
+
+
 def auto_mesh_shape(n_devices: int, n_qubits=None,
-                    hbm_budget_bytes: float = 8e9) -> tuple[int, int]:
-    """The ``--mesh auto`` policy: particles-only until register HBM
+                    hbm_budget_bytes: Optional[float] = None
+                    ) -> tuple[int, int]:
+    """The ``--mesh auto`` policy: particles-only until the register
     forces qubit sharding.
 
-    SCALING_r03/r04 measured why: SMC weak-scaling on the particle axis
-    projects ~99.7% efficiency (zero comm bytes), while stacking qubit
-    model-parallelism adds localization all_to_alls at every collapse —
-    so the qubit axis is engaged only when a single device cannot hold
-    the planar register (2·2^n·4 bytes) within ``hbm_budget_bytes``
-    (default 8 GB: half a v5e's HBM, leaving room for the fan-out
-    working set).  Returns (particles, qubit_shards) with qubit_shards
-    the smallest power of two that fits the register.
+    SMC on the particle axis needs no communication, while qubit shards
+    add localization all_to_alls at every collapse — so the qubit axis is
+    engaged only when a single device cannot hold the planar register
+    (2·2^n·4 bytes) within ``hbm_budget_bytes`` (default:
+    :func:`device_memory_budget` of the first device).  Returns
+    (particles, qubit_shards) with qubit_shards the smallest power of two
+    that fits the register.
     """
     if n_devices < 1:
         raise ValueError(f"need at least one device, got {n_devices}")
     if n_qubits is None:
         return (n_devices, 1)
+    if hbm_budget_bytes is None:
+        hbm_budget_bytes = device_memory_budget()
     state = 2.0 * (2 ** n_qubits) * 4
     q = 1
     while state / q > hbm_budget_bytes and q < n_devices:

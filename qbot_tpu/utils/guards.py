@@ -1,6 +1,6 @@
 """Numeric sanitizers (the race-detection/sanitizer slot, SURVEY.md §5).
 
-The reference is single-threaded with nothing to race; the TPU-native
+The reference is single-threaded with nothing to race; the device-side
 equivalents are numeric-health guards: NaN/Inf checks on engine outputs
 (checkify-style, usable inside jit) and norm-drift audits on unitary
 evolution.

@@ -1,7 +1,7 @@
 """Per-line wall-time profiling and jax trace contexts.
 
 The reference has no tracing/profiling at all (SURVEY.md §5); this module
-supplies the TPU-native plan: a cheap per-line wall/op report owned by the
+supplies the device-side plan: a cheap per-line wall/op report owned by the
 interpreter (which already owns line numbers), plus helpers to wrap program
 execution in ``jax.profiler`` traces and annotate engine calls with
 ``jax.named_scope``.

@@ -153,7 +153,7 @@ class TestCli:
 
 def test_precision_flag_sets_dot_mode(tmp_path):
     from qbot_tpu.cli import main
-    from qbot_tpu.tpu.kernels import dot_mode
+    from qbot_tpu.tpu.dotplan import dot_mode
 
     f = tmp_path / "p.qb"
     f.write_text("qset tensorProd(comp[0], comp[0])\n"
@@ -162,19 +162,31 @@ def test_precision_flag_sets_dot_mode(tmp_path):
         assert main([str(f), "--precision", "bf16_3x"]) == 0
         assert dot_mode() == "bf16_3x"
     finally:
-        from qbot_tpu.tpu.kernels import set_dot_mode
+        from qbot_tpu.tpu.dotplan import set_dot_mode
         set_dot_mode("f32")
 
 
+class _StubDevice:
+    device_kind = "stub"
+
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
 class TestAutoMesh:
-    """--mesh auto: the SCALING_r04 policy — particles-only until the
-    register needs qubit shards for HBM."""
+    """--mesh auto: particles-only until the register needs qubit shards
+    for device memory."""
 
     def test_policy_function(self):
         from qbot_tpu.utils.config import auto_mesh_shape
 
-        # small registers: all devices on the particle axis
-        assert auto_mesh_shape(8, 10) == (8, 1)
+        # small registers: all devices on the particle axis (an unknown
+        # width needs no budget; a known one takes the caller's)
+        assert auto_mesh_shape(8, 10, hbm_budget_bytes=2**30 * 4.0) \
+            == (8, 1)
         assert auto_mesh_shape(8, None) == (8, 1)
         # a register over the budget splits the qubit axis minimally
         assert auto_mesh_shape(8, 30, hbm_budget_bytes=2**30 * 4.0) \
@@ -184,8 +196,26 @@ class TestAutoMesh:
         with pytest.raises(ValueError):
             auto_mesh_shape(0)
 
-    def test_cli_auto_mesh_runs(self, tmp_path, capsys):
+    def test_memory_budget_from_device(self):
+        from qbot_tpu.utils.config import device_memory_budget
+
+        dev = _StubDevice({"bytes_limit": 8 * 2**30, "bytes_in_use": 0})
+        assert device_memory_budget(dev) == 4 * 2**30
+
+    @pytest.mark.parametrize("stats", [None, {}, {"bytes_in_use": 0}])
+    def test_memory_budget_refuses_unknown_device(self, stats):
+        from qbot_tpu.utils.config import device_memory_budget
+
+        with pytest.raises(ValueError, match="no memory limit"):
+            device_memory_budget(_StubDevice(stats))
+
+    def test_cli_auto_mesh_runs(self, tmp_path, capsys, monkeypatch):
         from qbot_tpu.cli import main
+        from qbot_tpu.utils import config
+
+        # the CPU backend reports no memory limit: give it a stub budget
+        monkeypatch.setattr(config, "device_memory_budget",
+                            lambda device=None: 4 * 2**30)
 
         prog = tmp_path / "p.qb"
         prog.write_text("qset tensorExp(comp[0], 4)\n"

@@ -1,10 +1,8 @@
-"""Dot-engine executor (tpu/dotplan.py) vs the planar executor.
+"""Dot-engine executor (dotplan.py) vs the planar executor.
 
-The dot engine applies each window as ONE realified XLA dot and tracks
-the axis permutation across passes instead of restoring canonical order
-(the fused output transpose costs ~45% of a pass, measured on v5e —
-benchmarks/diag_xladot.py).  These tests pin its semantics to the
-existing planar executor on every step kind it lowers.
+The dot engine applies each window as ONE realified in-place XLA dot.
+These tests pin its semantics to the step executor on every step kind
+it lowers.
 """
 import numpy as np
 import pytest
@@ -12,7 +10,6 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from qbot_tpu.tpu import kernels
 from qbot_tpu.tpu.circuit import (
     Circuit,
     grover_circuit,
@@ -48,19 +45,15 @@ def _brickwork(n, layers, seed=0):
 
 
 def _compare(circ, w, seed=1, params=None):
-    kernels.set_kernel_mode("off")
-    try:
-        plan = compile_circuit(circ, window=w)
-        lowered = lower_dot_plan(plan)
-        assert lowered is not None, "dot lowering bailed"
-        assert lowered.final_perm == lowered.entry_perm
-        psi0 = _rand_state(circ.n, seed)
-        ref = apply_plan_planar(psi0, plan, params)
-        out = apply_plan_dot(psi0, lowered, params)
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                   atol=F32TOL)
-    finally:
-        kernels.set_kernel_mode("auto")
+    plan = compile_circuit(circ, window=w)
+    lowered = lower_dot_plan(plan)
+    assert lowered is not None, "dot lowering bailed"
+    assert lowered.final_perm == lowered.entry_perm
+    psi0 = _rand_state(circ.n, seed)
+    ref = apply_plan_planar(psi0, plan, params)
+    out = apply_plan_dot(psi0, lowered, params)
+    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                               atol=F32TOL)
 
 
 class TestDifferential:
@@ -126,80 +119,67 @@ class TestRestoreBlocks:
         are real (8, 128) axes."""
         from qbot_tpu.tpu.compiler import compile_circuit
 
-        kernels.set_kernel_mode("off")
-        try:
-            circ = _brickwork(14, 3, seed=13)
-            plan = compile_circuit(circ, window=w, partition="dot")
-            lowered = lower_dot_plan(plan)
-            assert lowered is not None
-            assert lowered.final_perm == lowered.entry_perm
-            psi0 = _rand_state(14, 14)
-            ref = apply_plan_planar(psi0, compile_circuit(circ, window=w))
-            out = apply_plan_dot(psi0, lowered)
-            np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                                       atol=F32TOL)
-        finally:
-            kernels.set_kernel_mode("auto")
+        circ = _brickwork(14, 3, seed=13)
+        plan = compile_circuit(circ, window=w, partition="dot")
+        lowered = lower_dot_plan(plan)
+        assert lowered is not None
+        assert lowered.final_perm == lowered.entry_perm
+        psi0 = _rand_state(14, 14)
+        ref = apply_plan_planar(psi0, compile_circuit(circ, window=w))
+        out = apply_plan_dot(psi0, lowered)
+        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                                   atol=F32TOL)
 
 
 class TestCycle:
     def test_scanned_body_matches_sequential(self):
-        kernels.set_kernel_mode("off")
-        try:
-            circ = _brickwork(7, 2, seed=8)
-            plan = compile_circuit(circ, window=4)
-            lowered = lower_dot_plan(plan)
-            psi0 = _rand_state(7, 4)
+        circ = _brickwork(7, 2, seed=8)
+        plan = compile_circuit(circ, window=4)
+        lowered = lower_dot_plan(plan)
+        psi0 = _rand_state(7, 4)
 
-            @jax.jit
-            def scanned(p):
-                def body(c, _):
-                    return apply_plan_dot(c, lowered), None
-                out, _ = jax.lax.scan(body, p, None, length=3)
-                return out
+        @jax.jit
+        def scanned(p):
+            def body(c, _):
+                return apply_plan_dot(c, lowered), None
+            out, _ = jax.lax.scan(body, p, None, length=3)
+            return out
 
-            ref = psi0
-            for _ in range(3):
-                ref = apply_plan_planar(ref, plan)
-            np.testing.assert_allclose(np.asarray(scanned(psi0)),
-                                       np.asarray(ref), atol=2e-5)
-        finally:
-            kernels.set_kernel_mode("auto")
+        ref = psi0
+        for _ in range(3):
+            ref = apply_plan_planar(ref, plan)
+        np.testing.assert_allclose(np.asarray(scanned(psi0)),
+                                   np.asarray(ref), atol=2e-5)
 
 
 class TestGradients:
     def test_grad_matches_planar(self):
-        kernels.set_kernel_mode("off")
-        try:
-            circ = parameterized_layers(5, 2)
-            plan = compile_circuit(circ, window=3)
-            lowered = lower_dot_plan(plan)
-            psi0 = _rand_state(5, 5)
-            target = _rand_state(5, 6)
+        circ = parameterized_layers(5, 2)
+        plan = compile_circuit(circ, window=3)
+        lowered = lower_dot_plan(plan)
+        psi0 = _rand_state(5, 5)
+        target = _rand_state(5, 6)
 
-            def loss_dot(theta):
-                out = apply_plan_dot(psi0, lowered, theta)
-                return jnp.sum((out - target) ** 2)
+        def loss_dot(theta):
+            out = apply_plan_dot(psi0, lowered, theta)
+            return jnp.sum((out - target) ** 2)
 
-            def loss_planar(theta):
-                out = apply_plan_planar(psi0, plan, theta)
-                return jnp.sum((out - target) ** 2)
+        def loss_planar(theta):
+            out = apply_plan_planar(psi0, plan, theta)
+            return jnp.sum((out - target) ** 2)
 
-            theta = jnp.asarray(np.linspace(0.1, 1.0, circ.num_params),
-                                dtype=jnp.float32)
-            g1 = jax.grad(loss_dot)(theta)
-            g2 = jax.grad(loss_planar)(theta)
-            np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
-                                       atol=1e-4)
-        finally:
-            kernels.set_kernel_mode("auto")
+        theta = jnp.asarray(np.linspace(0.1, 1.0, circ.num_params),
+                            dtype=jnp.float32)
+        g1 = jax.grad(loss_dot)(theta)
+        g2 = jax.grad(loss_planar)(theta)
+        np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
+                                   atol=1e-4)
 
 
 class TestViewInvariants:
-    """Round-4 layout discipline: every lowered view keeps the plan's
-    LITERAL trailing (2^sub, 2^lane) dims (diag_engine4: views that are
-    merely tile-compatible but change trailing sizes cost ~1 ms/pass in
-    relayouts), and no size-1 axes appear in window specs."""
+    """Layout discipline: every lowered view keeps the plan's LITERAL
+    trailing (2^sub, 2^lane) dims (reshapes between passes stay
+    bitcasts), and no size-1 axes appear in window specs."""
 
     def _brick(self, n, layers):
         rng = np.random.default_rng(0)
@@ -215,8 +195,8 @@ class TestViewInvariants:
                 c.gate(X, [q + 1], controls=[q])
         return c
 
-    @pytest.mark.parametrize("n,part", [(26, "dot"), (26, "pallas"),
-                                        (20, "dot"), (16, "pallas")])
+    @pytest.mark.parametrize("n,part", [(26, "dot"), (26, "step"),
+                                        (20, "dot"), (16, "step")])
     def test_trailing_dims_identical_across_views(self, n, part):
         from qbot_tpu.tpu.dotplan import _Win, lower_dot_plan
 
@@ -234,9 +214,7 @@ class TestViewInvariants:
 
     def test_brickwork_pass_count_is_twelve(self):
         """The support-based lazy flushing + all-odd dot boundaries keep
-        the 4-layer 26q brickwork at 12 window passes (the round-4
-        schedule diag_hybrid3 validated at 4,449 gates/s)."""
-        from qbot_tpu.tpu.compiler import FlipStep, expand_pairs
+        the 4-layer 26q brickwork at 12 window passes."""
         from qbot_tpu.tpu.dotplan import _Win, lower_dot_plan
 
         plan = compile_circuit(self._brick(26, 4), 7, partition="dot")
@@ -266,7 +244,7 @@ class TestDensityDotEngine:
         rp = jnp.asarray(np.stack([rho.real, rho.imag]).astype(np.float32))
 
         plan = compile_circuit(c, w)
-        plan.engine = "pallas"
+        plan.engine = "step"
         ref = apply_plan_density_planar(rp, plan)
         plan_dot = compile_circuit(c, w)
         plan_dot.engine = "dot"

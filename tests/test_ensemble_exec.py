@@ -614,3 +614,29 @@ class TestTilingSafeCollapse:
                                    atol=5e-5)
         np.testing.assert_allclose(np.asarray(new_e.psi),
                                    np.asarray(old_e.psi), atol=5e-5)
+
+
+class TestSafeLayoutSelection:
+    """The formulation follows the register width on every backend:
+    direct (2,)*n views below _MASK_N_MIN qubits (or past 12 targets),
+    mask/carrier forms from there up.  ``_FORCE_SAFE`` True / False pins
+    one form where the mask/carrier forms apply."""
+
+    @pytest.mark.parametrize("n,t,safe", [(8, 1, False), (13, 2, False),
+                                          (14, 1, True), (24, 3, True),
+                                          (30, 13, False)])
+    def test_default_selects_by_width(self, n, t, safe):
+        import qbot_tpu.inference.ensemble_exec as ee
+
+        assert ee._FORCE_SAFE is None
+        assert ee._safe_layouts(n, t) is safe
+
+    def test_force_selects_safe_where_it_applies(self, monkeypatch):
+        import qbot_tpu.inference.ensemble_exec as ee
+
+        monkeypatch.setattr(ee, "_FORCE_SAFE", True)
+        assert ee._safe_layouts(ee._MASK_N_MIN, 1) is True
+        assert ee._safe_layouts(ee._MASK_N_MIN - 1, 1) is False
+        assert ee._safe_layouts(24, 13) is False
+        monkeypatch.setattr(ee, "_FORCE_SAFE", False)
+        assert ee._safe_layouts(24, 3) is False

@@ -123,8 +123,8 @@ class TestHMC:
 
 
 class TestPlanarLogProb:
-    """Real-TPU HMC path: planar log-prob + gradients through the
-    Pallas window kernels' custom VJP vs the complex oracle."""
+    """Device HMC path: planar log-prob + gradients through the planar
+    executors (JAX's own differentiation rules) vs the complex oracle."""
 
     def _setup(self):
         import jax.numpy as jnp
@@ -136,14 +136,14 @@ class TestPlanarLogProb:
         from qbot_tpu.tpu.circuit import parameterized_layers
         from qbot_tpu.tpu.compiler import compile_circuit
 
-        from qbot_tpu.tpu.compiler import PairStep
+        from qbot_tpu.tpu.compiler import WindowStep
 
-        # default pair-fused plan: the pair kernels' custom VJP must carry
-        # the gradient (round-3 criterion: HMC runs on the tuned forward
-        # path, no pair=False detour)
+        # default plan: the gradient flows through adjacent window passes
         circ = parameterized_layers(8, 2)
         plan = compile_circuit(circ, window=4)
-        assert any(isinstance(s, PairStep) for s in plan.steps)
+        wins = [s for s in plan.steps if isinstance(s, WindowStep)]
+        assert any(a.start + a.width == b.start
+                   for a, b in zip(wins, wins[1:]))
         counts = jnp.zeros(2**8).at[0].set(40.0).at[3].set(24.0)
         lp_c = make_circuit_log_prob(plan, counts)
         lp_p = make_circuit_log_prob_planar(plan, counts)
@@ -164,17 +164,25 @@ class TestPlanarLogProb:
         np.testing.assert_allclose(gp, gc, rtol=2e-3, atol=1e-3)
 
     def test_grad_through_pallas_kernels(self):
+        """The same gradient through the dot engine's in-place windows."""
         import jax
+        import jax.numpy as jnp
 
-        from qbot_tpu.tpu import kernels
+        from qbot_tpu.inference.hmc import (
+            make_circuit_log_prob,
+            make_circuit_log_prob_planar,
+        )
+        from qbot_tpu.tpu.circuit import parameterized_layers
+        from qbot_tpu.tpu.compiler import compile_circuit
 
-        lp_c, lp_p, theta = self._setup()
-        kernels.set_kernel_mode("interpret")
-        try:
-            gp = np.asarray(jax.grad(lp_p)(theta))
-        finally:
-            kernels.set_kernel_mode("auto")
-        gc = np.asarray(jax.grad(lp_c)(theta))
+        circ = parameterized_layers(8, 2)
+        plan = compile_circuit(circ, window=4)
+        plan.engine = "dot"
+        counts = jnp.zeros(2**8).at[0].set(40.0).at[3].set(24.0)
+        theta = jnp.linspace(0.2, 1.4, circ.num_params)
+        gp = np.asarray(jax.grad(make_circuit_log_prob_planar(
+            plan, counts))(theta))
+        gc = np.asarray(jax.grad(make_circuit_log_prob(plan, counts))(theta))
         np.testing.assert_allclose(gp, gc, rtol=2e-3, atol=1e-3)
 
     def test_grad_through_reflect_step(self):

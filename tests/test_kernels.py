@@ -1,27 +1,25 @@
-"""Pallas kernel tests (interpret mode on CPU) vs the XLA einsum path."""
+"""Step-executor window and phase formulations vs complex oracles.
+
+Each test runs one state geometry (middle window, trailing window, two
+adjacent windows, fused flips and phases) through the plain XLA
+formulation in :mod:`qbot_tpu.tpu.planar` and compares it with a dense
+complex einsum or the complex executor.
+"""
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from qbot_tpu.tpu import kernels
+from qbot_tpu.tpu import dotplan
 from qbot_tpu.tpu.circuit import Circuit, random_circuit
 from qbot_tpu.tpu.compiler import compile_circuit
 from qbot_tpu.tpu.planar import (
     apply_plan_planar,
     from_planar,
+    planar_window_apply,
     zero_state_planar,
 )
 from qbot_tpu.tpu.simulator import apply_plan, zero_state
-
-
-@pytest.fixture
-def interpret_kernels():
-    kernels.set_kernel_mode("interpret")
-    try:
-        yield
-    finally:
-        kernels.set_kernel_mode("auto")
 
 
 def _rand_planar(n, seed=0):
@@ -32,14 +30,14 @@ def _rand_planar(n, seed=0):
 
 
 class TestPlanarWindowApply:
-    def test_left_multiply_geometry(self, interpret_kernels):
-        """Middle window (a>1, B>=128): Pallas left-multiply kernel."""
+    def test_left_multiply_geometry(self):
+        """Middle window (a>1, B>=128)."""
         n, start, width = 10, 1, 2     # a=2, D=4, B=128
         psi = _rand_planar(n, 1)
         W = np.linalg.qr(np.random.default_rng(2).normal(size=(4, 4))
                          + 1j * np.random.default_rng(3).normal(size=(4, 4)))[0]
         planar = jnp.asarray(np.stack([psi.real, psi.imag]), dtype=jnp.float32)
-        got = kernels.planar_window_apply(
+        got = planar_window_apply(
             planar, n, start, width,
             jnp.asarray(W.real, jnp.float32), jnp.asarray(W.imag, jnp.float32))
         # oracle
@@ -48,22 +46,22 @@ class TestPlanarWindowApply:
         np.testing.assert_allclose(from_planar(np.asarray(got)), want,
                                    atol=1e-5)
 
-    def test_right_multiply_geometry(self, interpret_kernels):
-        """Trailing window (B==1): Pallas right-multiply kernel."""
+    def test_right_multiply_geometry(self):
+        """Trailing window (B==1)."""
         n, start, width = 10, 3, 7     # a=8, D=128, B=1
         psi = _rand_planar(n, 4)
         rng = np.random.default_rng(5)
         W = np.linalg.qr(rng.normal(size=(128, 128))
                          + 1j * rng.normal(size=(128, 128)))[0]
         planar = jnp.asarray(np.stack([psi.real, psi.imag]), dtype=jnp.float32)
-        got = kernels.planar_window_apply(
+        got = planar_window_apply(
             planar, n, start, width,
             jnp.asarray(W.real, jnp.float32), jnp.asarray(W.imag, jnp.float32))
         want = np.einsum("ij,aj->ai", W, psi.reshape(8, 128)).reshape(-1)
         np.testing.assert_allclose(from_planar(np.asarray(got)), want,
                                    atol=1e-4)
 
-    def test_full_circuit_with_kernels(self, interpret_kernels):
+    def test_full_circuit_with_kernels(self):
         n = 10
         c = random_circuit(n, 2, seed=6)
         plan = compile_circuit(c)
@@ -74,14 +72,12 @@ class TestPlanarWindowApply:
 
     def test_mode_validation(self):
         with pytest.raises(ValueError):
-            kernels.set_kernel_mode("bogus")
-        assert kernels.kernel_mode() == "auto"
+            dotplan.set_dot_mode("bogus")
+        assert dotplan.dot_mode() == "f32"
 
 
 class TestPairKernels:
     def _run_pair(self, n, s1, w1, s2, w2, seed, flips=()):
-        from qbot_tpu.tpu.kernels import planar_pair_window_apply
-
         rng = np.random.default_rng(seed)
         psi = _rand_planar(n, seed)
         D1, D2 = 2**w1, 2**w2
@@ -91,11 +87,14 @@ class TestPairKernels:
                           + 1j * rng.normal(size=(D2, D2)))[0]
         planar = jnp.asarray(np.stack([psi.real, psi.imag]),
                              dtype=jnp.float32)
-        got = planar_pair_window_apply(
-            planar, n, s1, w1, s2, w2,
+        assert s1 + w1 == s2
+        got = planar_window_apply(
+            planar, n, s1, w1,
             jnp.asarray(W1.real, jnp.float32), jnp.asarray(W1.imag, jnp.float32),
-            jnp.asarray(W2.real, jnp.float32), jnp.asarray(W2.imag, jnp.float32),
             pre_flips=flips)
+        got = planar_window_apply(
+            got, n, s2, w2,
+            jnp.asarray(W2.real, jnp.float32), jnp.asarray(W2.imag, jnp.float32))
         # oracle: flips, then window 1, then window 2, dense einsum
         want = psi.copy()
         for m in flips:
@@ -107,32 +106,33 @@ class TestPairKernels:
         t = np.einsum("ij,ajb->aib", W2, t)
         return np.asarray(got), t.reshape(-1)
 
-    def test_trailing_pair_b1(self, interpret_kernels):
-        """(12,7)+(19,7)-style pair: B == 1 kernel (scaled down)."""
+    def test_trailing_pair_b1(self):
+        """Adjacent windows ending at the last qubit: B == 1."""
         got, want = self._run_pair(n=10, s1=2, w1=4, s2=6, w2=4, seed=7)
         np.testing.assert_allclose(from_planar(got), want, atol=1e-4)
 
-    def test_trailing_pair_b1_with_flips(self, interpret_kernels):
+    def test_trailing_pair_b1_with_flips(self):
         got, want = self._run_pair(n=10, s1=2, w1=4, s2=6, w2=4, seed=8,
                                    flips=(0, 513, 1023))
         np.testing.assert_allclose(from_planar(got), want, atol=1e-4)
 
-    def test_middle_pair_bt(self, interpret_kernels):
-        """(0,5)+(5,7)-style pair: B >= 128 kernel (scaled down)."""
+    def test_middle_pair_bt(self):
+        """Adjacent windows from qubit 0 with a trailing B >= 128."""
         got, want = self._run_pair(n=12, s1=0, w1=2, s2=2, w2=3, seed=9)
         np.testing.assert_allclose(from_planar(got), want, atol=1e-4)
 
-    def test_middle_pair_bt_with_flips(self, interpret_kernels):
+    def test_middle_pair_bt_with_flips(self):
         got, want = self._run_pair(n=12, s1=0, w1=2, s2=2, w2=3, seed=10,
                                    flips=(5, 700, 4095))
         np.testing.assert_allclose(from_planar(got), want, atol=1e-4)
 
-    def test_paired_plan_matches_unpaired(self, interpret_kernels):
-        """End-to-end: compile with and without pairing, same state.
+    def test_paired_plan_matches_unpaired(self):
+        """End-to-end: a plan of adjacent windows (one pass each) on the
+        step executor, the dot engine and the complex executor.
 
         Layers of distinct rotations (so the H·flip·H reflection pattern
         does NOT trigger and the windows stay windows)."""
-        from qbot_tpu.tpu.compiler import PairStep
+        from qbot_tpu.tpu.compiler import FlipStep, WindowStep
 
         n = 10
         c = Circuit(n)
@@ -142,22 +142,25 @@ class TestPairKernels:
         c.phase_flip(17)
         for q in range(n):
             c.rx(q, 0.3 + 0.1 * q)
-        paired = compile_circuit(c, window=4, pair=True)
-        unpaired = compile_circuit(c, window=4, pair=False)
-        assert any(isinstance(s, PairStep) for s in paired.steps)
-        assert paired.num_passes < unpaired.num_passes
-        got = apply_plan_planar(zero_state_planar(n), paired)
-        want = apply_plan_planar(zero_state_planar(n), unpaired)
+        plan = compile_circuit(c, window=4)
+        wins = [s for s in plan.steps if isinstance(s, WindowStep)]
+        assert any(a.start + a.width == b.start
+                   for a, b in zip(wins, wins[1:]))
+        assert plan.num_passes == sum(not isinstance(s, FlipStep)
+                                      for s in plan.steps)
+        got = apply_plan_planar(zero_state_planar(n), plan)
+        plan.engine = "dot"
+        want = apply_plan_planar(zero_state_planar(n), plan)
+        plan.engine = "step"
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-4)
-        # complex executor sees expanded pairs and must agree too
-        ref = np.asarray(apply_plan(zero_state(n, jnp.complex128), paired))
+        ref = np.asarray(apply_plan(zero_state(n, jnp.complex128), plan))
         np.testing.assert_allclose(from_planar(np.asarray(got)), ref,
                                    atol=1e-4)
 
 
 class TestPhaseFusion:
-    """Cross-window controlled phases fuse into kernels (no diag pass)."""
+    """Cross-window controlled phases fuse into windows as pre-phases."""
 
     def _brickwork(self, n, layers=2, seed=5):
         rng = np.random.default_rng(seed)
@@ -181,20 +184,17 @@ class TestPhaseFusion:
         kinds = [type(s).__name__ for s in plan.steps]
         assert "DiagStep" not in kinds
         # every cross-window CZ/CPhase fused into a window's pre_phases
-        from qbot_tpu.tpu.compiler import PairStep, WindowStep
+        from qbot_tpu.tpu.compiler import WindowStep
         fused = sum(len(s.pre_phases) for s in plan.steps
                     if isinstance(s, WindowStep))
-        fused += sum(len(s.first.pre_phases) for s in plan.steps
-                     if isinstance(s, PairStep))
         standalone = sum(isinstance(s, PhaseStep) for s in plan.steps)
         assert fused + standalone > 0
         assert fused > 0
 
     @pytest.mark.parametrize("n,window", [(10, 3), (11, 4), (12, 5)])
-    def test_planar_kernels_match_simulator(self, interpret_kernels, n,
-                                            window):
-        """Fused phases through every kernel geometry vs the complex
-        oracle (interpret mode runs the real kernel bodies on CPU)."""
+    def test_planar_kernels_match_simulator(self, n, window):
+        """Fused phases through every window geometry of the step
+        executor vs the complex oracle."""
         circ = self._brickwork(n)
         plan = compile_circuit(circ, window=window)
         psi0 = _rand_planar(n, seed=n)
@@ -205,18 +205,16 @@ class TestPhaseFusion:
         np.testing.assert_allclose(got, want, atol=2e-5)
 
     def test_xla_fallback_matches(self):
-        kernels.set_kernel_mode("off")
-        try:
-            circ = self._brickwork(10)
-            plan = compile_circuit(circ, window=3)
-            psi0 = _rand_planar(10, seed=3)
-            planar = jnp.asarray(np.stack([psi0.real, psi0.imag]),
-                                 dtype=jnp.float32)
-            got = from_planar(np.asarray(apply_plan_planar(planar, plan)))
-            want = np.asarray(apply_plan(jnp.asarray(psi0), plan))
-            np.testing.assert_allclose(got, want, atol=2e-5)
-        finally:
-            kernels.set_kernel_mode("auto")
+        """The same plan on the dot engine matches the complex oracle."""
+        circ = self._brickwork(10)
+        plan = compile_circuit(circ, window=3)
+        plan.engine = "dot"
+        psi0 = _rand_planar(10, seed=3)
+        planar = jnp.asarray(np.stack([psi0.real, psi0.imag]),
+                             dtype=jnp.float32)
+        got = from_planar(np.asarray(apply_plan_planar(planar, plan)))
+        want = np.asarray(apply_plan(jnp.asarray(psi0), plan))
+        np.testing.assert_allclose(got, want, atol=2e-5)
 
     def test_density_expansion_matches(self):
         from qbot_tpu.tpu.planar import (

@@ -1,6 +1,6 @@
 """Planar (real/imag float) executor vs the complex executor.
 
-The TPU backend has no complex dtypes; this cross-checks that the planar
+The device path stores states planar; this cross-checks that the planar
 float path is numerically identical to the complex path on every step kind.
 """
 import numpy as np
@@ -74,7 +74,7 @@ def test_to_from_planar_roundtrip():
 
 
 class TestPlanarDensity:
-    """Planar density executor (the real-TPU mixed-state path) vs the
+    """Planar density executor (the device mixed-state path) vs the
     complex-dtype density executor."""
 
     def _check(self, circ, atol=1e-4, params=None, window=7):

@@ -440,7 +440,7 @@ class TestShardedDotEngine:
         splan = compile_sharded(c, k, window="auto")
         segs = [i for i in splan.items if isinstance(i, LocalSegment)]
         assert segs, "expected local segments"
-        # on CPU (no Pallas) the auto ranking picks the dot engine for
+        # the auto ranking picks the dot engine for
         # dense local segments
         assert any(s.plan.engine == "dot" for s in segs)
 
@@ -643,3 +643,39 @@ class TestFusedCollapseEvents:
         for name in ("a", "b", "c"):
             np.testing.assert_allclose(a[name].probs, b[name].probs,
                                        atol=1e-7)
+
+
+class TestSafeLayoutQShardedSample:
+    """Q-sharded sample mode under the mask/carrier collapse formulations
+    (``_FORCE_SAFE=True``): the 5-D carrier boundary takes its front dim
+    from the GLOBAL state width, so it must not scale it by the shard
+    count again.  Needs n_local >= 14 for the formulations to engage."""
+
+    SRC = ("qset tensorExp(computation.kets[0], {n})\n"
+           "gate hadamardGate ; 0\n"
+           "gate pauliXGate ; {last} ; [0]\n"
+           "gate hadamardGate ; 2\n"
+           "meas a ; computation ; [0]\n"
+           "meas b ; computation ; [2, {last}]")
+
+    def _run(self, monkeypatch, k, safe):
+        import qbot_tpu.inference.ensemble_exec as ee
+
+        monkeypatch.setattr(ee, "_FORCE_SAFE", safe)
+        n = 14 + k
+        lp = lower_program(self.SRC.format(n=n, last=n - 1),
+                           mid_measure=True)
+        res, ens, _, _ = run_lowered_sharded_ensemble(
+            lp, mesh=_mesh(1, 2**k), sample=8, seed=7)
+        return res, ens
+
+    @pytest.mark.parametrize("k", [1, 2])
+    def test_matches_direct_formulation(self, monkeypatch, k):
+        res, ens = self._run(monkeypatch, k, True)
+        ref, _ = self._run(monkeypatch, k, False)
+        assert ens.psi.shape[-1] == 2**(14 + k)
+        assert len(ens.psi.sharding.device_set) == 2**k
+        np.testing.assert_allclose(res["a"].probs, [0.5, 0.5], atol=1e-5)
+        for name in ("a", "b"):
+            np.testing.assert_allclose(res[name].probs, ref[name].probs,
+                                       atol=1e-5)

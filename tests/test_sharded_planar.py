@@ -260,7 +260,7 @@ class TestTrafficAccounting:
         c = Circuit(10)
         for q in range(10):
             c.h(q)
-        plan = compile_circuit(c, window=7)       # one PairStep pass
+        plan = compile_circuit(c, window=7)       # two window passes
         assert plan.hbm_bytes() == 2 * 2 * 1024 * 4 * plan.num_passes
 
     def test_sharded_comm_bytes(self):

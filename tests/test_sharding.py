@@ -102,7 +102,7 @@ class TestCollectives:
     def test_psum_weight_normalization(self, mesh):
         """SMC weight normalisation as a psum over the particle axis."""
         # version-guarded import (jax.shard_map on new jax, the
-        # experimental module on old — same guard as tpu/sharded.py)
+        # experimental module on old)
         try:
             from jax import shard_map
         except ImportError:          # pragma: no cover - older jax

@@ -1,8 +1,8 @@
-"""TPU-path tests: window-fusion compiler + jitted executors vs the numpy
+"""Device-path tests: window-fusion compiler + jitted executors vs the numpy
 oracle engine (the framework's own cross-validation pattern, SURVEY §4).
 
 Runs on CPU-jax under the test env (conftest sets JAX_PLATFORMS=cpu); the
-same code path runs unchanged on TPU.
+same code path runs unchanged on the GPU.
 """
 import numpy as np
 import pytest
@@ -69,13 +69,12 @@ class TestCompiler:
         c = Circuit(10)
         for q in range(10):
             c.h(q)
-        # the two windows of the H-layer fuse into one PairStep pass
+        # the H-layer folds into two adjacent windows, one pass each
         plan = compile_circuit(c, window=7)
-        assert plan.num_passes == 1
-        from qbot_tpu.tpu.compiler import PairStep
-        assert isinstance(plan.steps[0], PairStep)
-        plan_unpaired = compile_circuit(c, window=7, pair=False)
-        assert plan_unpaired.num_passes == 2
+        assert plan.num_passes == 2
+        assert [type(s) for s in plan.steps] == [WindowStep, WindowStep]
+        a, b = plan.steps
+        assert (a.start, a.width, b.start, b.width) == (0, 3, 3, 7)
 
     def test_cross_window_controlled_gate_becomes_phase(self):
         # controlled gates never contract across windows: CX rewrites to
@@ -86,11 +85,9 @@ class TestCompiler:
         kinds = [type(s).__name__ for s in plan.steps]
         assert "ContractStep" not in kinds
         assert "DiagStep" not in kinds
-        from qbot_tpu.tpu.compiler import PairStep, PhaseStep, WindowStep
+        from qbot_tpu.tpu.compiler import PhaseStep, WindowStep
         fused = sum(len(s.pre_phases) for s in plan.steps
                     if isinstance(s, WindowStep))
-        fused += sum(len(s.first.pre_phases) for s in plan.steps
-                     if isinstance(s, PairStep))
         standalone = sum(isinstance(s, PhaseStep) for s in plan.steps)
         assert fused + standalone >= 1
 

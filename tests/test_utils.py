@@ -165,6 +165,7 @@ class TestCompileCache:
 
         target = str(tmp_path / "cache")
         monkeypatch.setattr(cc, "_enabled", False)
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
         monkeypatch.setenv("QBOT_TPU_COMPILE_CACHE", target)
         assert cc.cache_is_warm() is False
         prev = jax.config.jax_compilation_cache_dir
@@ -176,6 +177,43 @@ class TestCompileCache:
             assert cc.enable_compile_cache() == target
         finally:
             jax.config.update("jax_compilation_cache_dir", prev)
+
+    @pytest.mark.parametrize("override", [None, "repo-dir"])
+    def test_jax_env_dir_wins_and_is_not_set_in_code(self, tmp_path,
+                                                      monkeypatch, override):
+        import jax
+
+        from qbot_tpu.utils import compile_cache as cc
+
+        env_dir = str(tmp_path / "jax-env-cache")
+        monkeypatch.setattr(cc, "_enabled", False)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env_dir)
+        if override:
+            monkeypatch.setenv("QBOT_TPU_COMPILE_CACHE",
+                               str(tmp_path / override))
+        else:
+            monkeypatch.delenv("QBOT_TPU_COMPILE_CACHE", raising=False)
+        prev = jax.config.jax_compilation_cache_dir
+        try:
+            assert cc.cache_dir() == env_dir
+            assert cc.cache_is_warm() is False
+            assert cc.enable_compile_cache() == env_dir
+            # JAX reads the variable itself; the code sets no directory
+            assert jax.config.jax_compilation_cache_dir == prev
+        finally:
+            jax.config.update("jax_compilation_cache_dir", prev)
+
+    def test_default_dir_without_env(self, monkeypatch):
+        from pathlib import Path
+
+        from qbot_tpu.utils import compile_cache as cc
+
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        monkeypatch.delenv("QBOT_TPU_COMPILE_CACHE", raising=False)
+        got = Path(cc.cache_dir())
+        assert got.name == ".jax_cache"
+        assert (got.parent / "qbot_tpu" / "utils" / "compile_cache.py"
+                ).is_file()
 
     def test_off_switch(self, monkeypatch):
         from qbot_tpu.utils import compile_cache as cc
